@@ -1,23 +1,24 @@
-"""ldpc_tpu: TPU-native LDPC decoding framework.
+"""ldpc_tpu: batched LDPC decoding framework on JAX.
 
 Enables JAX's persistent compilation cache on import: the decode programs
-(tier-switched Pallas LP solves inside cut-round while-loops) cost tens of
+(tier-switched LP solves inside cut-round while-loops) cost tens of
 seconds to minutes to compile, and every CLI app / sweep process pays that
 again without the on-disk cache.
+
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and no
+other directory is set here. Otherwise the cache lives at the fixed path
+``<checkout>/.jax_cache``: a fixed path, because the path is part of the
+cache key, and inside the checkout, which is the only directory the
+package writes.
 """
 import os as _os
-import tempfile as _tempfile
 
 import jax as _jax
 
-# Respect a cache dir already configured programmatically (before this
-# import) or via env; otherwise default to a per-user path so multi-user
-# hosts neither collide nor hit permission errors on a shared /tmp entry.
-if not _jax.config.jax_compilation_cache_dir:
-    _jax.config.update(
-        "jax_compilation_cache_dir",
-        _os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            _os.path.join(_tempfile.gettempdir(),
-                          f"jaxcache-{_os.getuid()}")))
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)

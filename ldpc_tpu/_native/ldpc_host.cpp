@@ -1,9 +1,9 @@
-// Native host-side core for the TPU LDPC framework.
+// Native host-side core for the LDPC framework.
 //
 // The reference implements its entire host runtime in C++ (GF(2) linear
 // algebra in utils/codeword.h, problem construction in algo/qp_admm.h:13-102,
 // PCM parsing in utils/parse_data.h). This library provides the same
-// host-side services for the TPU framework — bit-packed GF(2) elimination,
+// host-side services for the framework — bit-packed GF(2) elimination,
 // the cascaded ADMM/LP structure builder, and PCM text parsing — exposed as
 // a C ABI consumed from Python via ctypes (NumPy buffers in/out). Python
 // fallbacks exist for every entry point; equivalence is unit-tested.

@@ -1,10 +1,10 @@
 """Scaling-efficiency measurement: decode throughput at 1 device vs the full
-mesh (the north-star deliverable: cw/s at 1 chip / 1 host / N hosts with
->= 90% linear efficiency).
+mesh (cw/s at 1 device / 1 host / N hosts).
 
-On a multi-chip/multi-host system, run one process per host with
-``jax.distributed`` initialized (see ldpc_tpu.parallel.distributed); on a
-single host this measures 1 device vs all local devices. Under
+On a multi-host system, run one process per host with ``jax.distributed``
+initialized (see ldpc_tpu.parallel.distributed; ``--auto-distributed``
+lets JAX discover the cluster); on a single host this measures 1 device
+vs all local devices. Under
 ``JAX_PLATFORMS=cpu`` with ``jax_num_cpu_devices=N`` it exercises the same
 sharded program on the virtual mesh (functional check, not a perf claim).
 
@@ -40,28 +40,28 @@ def main(argv=None):
     p.add_argument("--snr", type=float, default=-3.0)
     p.add_argument("--batch-per-device", type=int, default=4096)
     p.add_argument("--bp-iters", type=int, default=50)
-    p.add_argument("--layout", default=None,
-                   help="bp layout; default pallas on tpu else mxu")
+    p.add_argument("--layout", default="auto",
+                   help="bp layout; auto takes the platform policy's")
+    p.add_argument("--auto-distributed", action="store_true",
+                   help="join a multi-host cluster that JAX discovers")
     args = p.parse_args(argv)
 
-    initialize_distributed()
+    initialize_distributed(auto=args.auto_distributed)
     devices = jax.devices()
     n_dev = len(devices)
-    layout = args.layout or ("pallas" if jax.default_backend() == "tpu"
-                             else "mxu")
 
     h = read_pcm(args.matrix)
     g, _ = gf2_nullspace(h)
     key = jax.random.PRNGKey(0)
     cw = np.asarray(gen_random_codewords(key, g, args.trials))
-    dec = BPDecoder(h, max_iter=args.bp_iters, layout=layout)
+    dec = BPDecoder(h, max_iter=args.bp_iters, layout=args.layout)
 
     # single device
     one = make_trial_mesh(devices[:1])
     thr1 = measure(dec, h, cw, args.snr, key, args.batch_per_device, one)
 
     out = {"devices": n_dev, "processes": jax.process_count(),
-           "layout": layout, "throughput_1dev": round(thr1, 1)}
+           "layout": dec.layout, "throughput_1dev": round(thr1, 1)}
     if n_dev > 1:
         full = make_trial_mesh(devices)
         thr_n = measure(dec, h, cw, args.snr, key,

@@ -43,7 +43,7 @@ def validate(matrix: str = "optimalH", decoders=("alp", "agc-alp"),
     key = jax.random.PRNGKey(seed)
     cw_key, noise_key = jax.random.split(key)
 
-    report = report or f"reports/report_tpu_{matrix}_validate.csv"
+    report = report or f"reports/report_{matrix}_validate.csv"
     unknown = [k for k in decoders if k not in CSV_NAMES]
     if unknown:
         raise SystemExit(f"unknown decoder(s) {unknown}; "

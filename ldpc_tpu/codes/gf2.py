@@ -1,8 +1,8 @@
 """GF(2) linear algebra on the host (NumPy) and on device (JAX).
 
-TPU-native re-design of the reference GF(2) core (``utils/codeword.h`` in the
+Batched re-design of the reference GF(2) core (``utils/codeword.h`` in the
 reference repo): bit vectors/matrices become ``uint8`` / ``bool`` ndarrays, the
-GF(2) matmul becomes an integer matmul reduced mod 2 (MXU-friendly on device),
+GF(2) matmul becomes an integer matmul reduced mod 2 (a plain matmul on device),
 and the Gaussian-elimination nullspace (``GetOrtogonal``,
 ``utils/codeword.h:97-128``) is a vectorized row-reduction.
 
@@ -101,7 +101,7 @@ def syndrome(h_dev, bits):
 
     ``h_dev``: (m, n) array (any integer/bool dtype); ``bits``: (..., n).
     Returns (..., m) uint8 syndrome. Uses an integer matmul so XLA can map it
-    to the MXU for large batches.
+    to a device matmul for large batches.
     """
     h_i = jnp.asarray(h_dev, dtype=jnp.int32)
     b_i = jnp.asarray(bits, dtype=jnp.int32)

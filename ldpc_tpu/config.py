@@ -13,6 +13,28 @@ from dataclasses import dataclass, field
 
 DEFAULT_SNRS = (-5.0, -4.5, -4.0, -3.5, -3.0, -2.5, -2.0, -1.5, -1.0, -0.5, 0.0)
 
+# The one place that picks a path per platform, keyed on
+# ``jax.devices()[0].platform``. ``bp_layout`` is BPDecoder's layout for
+# layout="auto"; ``gauss`` is the GF(2) elimination backend for
+# backend="auto" (the Triton kernel needs a CUDA card).
+PLATFORM_POLICY = {
+    "gpu": {"bp_layout": "mxu", "gauss": "triton"},
+    "cpu": {"bp_layout": "mxu", "gauss": "xla"},
+}
+
+
+def platform_choice(key: str, platform: str | None = None) -> str:
+    """The policy's choice of ``key`` for ``platform`` (default: the
+    platform of the first JAX device). An unknown platform raises: it
+    gets no other platform's choices."""
+    if platform is None:
+        import jax
+        platform = jax.devices()[0].platform
+    if platform not in PLATFORM_POLICY:
+        raise ValueError(f"no kernel policy for platform {platform!r}; "
+                         f"known: {sorted(PLATFORM_POLICY)}")
+    return PLATFORM_POLICY[platform][key]
+
 
 @dataclass
 class DecoderConfig:
@@ -20,7 +42,7 @@ class DecoderConfig:
 
     bp_max_iter: int = 100
     bp_variant: str = "sumprod"          # or "minsum"
-    bp_layout: str = "mxu"               # edge | dense | mxu | pallas
+    bp_layout: str = "auto"              # auto | edge | dense | mxu
     admm_alpha: float = 1.2              # OPTIMAL config (main.cpp:30)
     admm_mu: float = 0.55
     admm_max_iter: int = 10000
@@ -29,9 +51,7 @@ class DecoderConfig:
     lp_max_rounds: int = 64              # ALP cut rounds cap (while-loop guard)
     # PDHG chunk length between violation/stall checks. Smaller chunks stop
     # warm-started re-solves sooner (the cut loops re-solve after adding a
-    # handful of rows); measured FER-neutral at -3 dB from 600 down to 64
-    # (round 4: 64-chunks + the ALP decoder's 2048-iter budget lift ALP
-    # 952 -> 1248 cw/s at -3, matching the reference aggregate).
+    # handful of rows); 64 was found FER-neutral at -3 dB against 600.
     lp_iters: int = 64
     # FullLP's *total* PDHG iteration budget. Distinct from lp_iters, which
     # became the chunk length of the adaptive solvers: FullLP solves one
@@ -122,7 +142,7 @@ class OptimizeConfig:
     # chain restarts (alternating global-best-perturbed / fresh random)
     seed: int = 239
     init_matrix: str | None = None       # warm start path; None -> random
-    save_path: str = "data/optimalH_tpu.txt"
+    save_path: str = "data/optimalH_search.txt"
     state_path: str = "data/optimize_state.json"
 
 

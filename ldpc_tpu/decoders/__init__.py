@@ -11,17 +11,16 @@ __all__ = ["DecodeResult", "Decoder", "BPDecoder", "QPADMMDecoder",
 
 DECODER_NAMES = ("bp", "qp-admm", "full-lp", "alp", "agc-alp")
 
-# Measured single-chip throughput optima (PERF.md): BP tiles at 128
-# lanes/program and scales to large batches; QP-ADMM peaks at 1024 (beyond
-# that the 512-iteration streaming granule wastes tail work); the ALP
-# family is LP-solve-bound and flat in batch size, so stay small to keep
-# refill latency low (AGC's IPM rounds are long — keep its cohort tiny).
+# Starting defaults, not yet tuned on this card: BP scales to large
+# batches; QP-ADMM's 512-iteration streaming granule wastes tail work on
+# mostly-converged cohorts beyond ~1024 lanes; the ALP family keeps small
+# cohorts so streaming refills stay prompt (AGC's IPM rounds are long).
 DEFAULT_BATCH = {"bp": 8192, "qp-admm": 1024, "full-lp": 256,
                  "alp": 256, "agc-alp": 128}
 
 
 def default_batch(kind: str) -> int:
-    """Measured per-decoder throughput-optimal batch size."""
+    """Per-decoder default batch size (``DEFAULT_BATCH``)."""
     return DEFAULT_BATCH.get(kind.lower(), 256)
 
 

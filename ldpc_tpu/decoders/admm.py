@@ -1,6 +1,6 @@
 """Batched penalized QP-ADMM LDPC decoding (paper arXiv:1910.12712).
 
-TPU-first re-design of the reference QP-ADMM decoder (``algo/qp_admm.h``):
+Batched re-design of the reference QP-ADMM decoder (``algo/qp_admm.h``):
 the per-trial sparse problem construction (``ConstructADMMProblem``,
 ``qp_admm.h:13-102``) is hoisted to the host — the cascaded three-variable
 parity structure depends only on H — and stored as padded static index/coef
@@ -318,7 +318,7 @@ class QPADMMDecoder:
     # Streaming protocol (harness.experiment.run_streaming_experiment):
     # the batched decode's lax.while_loop runs the WHOLE batch to the
     # slowest lane's convergence — one stubborn 10000-iteration lane stalls
-    # every other lane in the batch (the round-2 285 cw/s plateau). The
+    # every other lane in the batch. The
     # streaming harness instead runs fixed-size chunks, drains converged
     # lanes between chunks, and refills their slots from the trial stream,
     # so steady-state cost per trial approaches mean-iterations, not

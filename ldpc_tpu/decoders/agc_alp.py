@@ -10,16 +10,14 @@ eliminated rows. The loop stops per lane when the total LP row count reaches
 source fires (``agc_alp.h:99-101``, including the ``||`` short-circuit: gauss
 cuts are only generated when zero H cuts were added that round).
 
-The elimination runs in the VMEM-resident Pallas kernel on TPU
-(:mod:`ldpc_tpu.ops.pallas.gauss_kernel`) with lane-group skipping — only
-the lanes that actually need gauss cuts this round pay for it — and falls
-back to the batched XLA routine (:mod:`ldpc_tpu.ops.gf2_gauss`) elsewhere.
+The elimination backend follows the platform policy
+(:func:`ldpc_tpu.ops.gf2_gauss.resolve_gauss_backend`): on a GPU the
+Triton kernel (:mod:`ldpc_tpu.ops.pallas.gauss_kernel`), which skips the
+lanes that need no gauss cuts this round; elsewhere the batched XLA loop.
 """
 from __future__ import annotations
 
-import jax.numpy as jnp
-
-from ..ops.gf2_gauss import calculate_gauss_batched
+from ..ops.gf2_gauss import calculate_gauss_batched, resolve_gauss_backend
 from .alp import _AdaptiveLPBase
 
 __all__ = ["AGCALPDecoder"]
@@ -47,7 +45,8 @@ class AGCALPDecoder(_AdaptiveLPBase):
         self.name = "AGC-ALP"
         self.gauss_eps = float(gauss_eps)
         self.gauss_margin = float(gauss_margin)
-        self.gauss_backend = gauss_backend
+        self.gauss_backend = resolve_gauss_backend(gauss_backend, self.m,
+                                                   self.n)
 
     def _gauss_sup(self, x, need=None):
         he = calculate_gauss_batched(self._h, x, self.gauss_eps,

@@ -1,6 +1,6 @@
 """Adaptive LP decoding (ALP) with on-device cut generation.
 
-TPU-first re-design of ``algo/alp.h``: start from the box LP whose optimum is
+Batched re-design of ``algo/alp.h``: start from the box LP whose optimum is
 the hard decision on the LLRs (objective = channel LLRs, no parity rows,
 ``alp.h:110-121``), then repeatedly (a) search every check row for the most
 violated odd-set parity cut (``AddRowsALP``, ``alp.h:21-97``), (b) append the
@@ -24,10 +24,14 @@ import numpy as np
 
 from ..codes.gf2 import is_codeword
 from ..ops.ipm_solver import ipm_box_lp
-from ..ops.lp_solver import pdhg_box_lp, pdhg_box_lp_fused
+from ..ops.lp_solver import pdhg_box_lp
 from .base import DecodeResult
 
-__all__ = ["ALPDecoder", "alp_cut_candidates", "append_cuts"]
+__all__ = ["ALPDecoder", "alp_cut_candidates", "append_cuts", "LP_BACKENDS"]
+
+# box-LP solvers of the cut loop: batched PDHG (ops.lp_solver) or the
+# batched Mehrotra IPM (ops.ipm_solver)
+LP_BACKENDS = ("xla", "ipm")
 
 
 def alp_cut_candidates(sup, u, cut_tol: float):
@@ -133,7 +137,7 @@ class _AdaptiveLPBase:
     def __init__(self, h, max_rows: int, max_rounds: int, lp_iters: int,
                  int_tol: float, cut_tol: float = 1e-3,
                  snap_tol: float = 0.02, perturb: float = 1e-3,
-                 lp_backend: str = "auto"):
+                 lp_backend: str = "xla"):
         h = np.asarray(h, dtype=np.uint8) % 2
         self._h = jnp.asarray(h)
         self._sup = jnp.asarray(h.astype(bool))
@@ -172,30 +176,25 @@ class _AdaptiveLPBase:
             rng.uniform(-1.0, 1.0, self.n).astype(np.float32))
         # capacity: the reference checks `rows < max_rows` BEFORE a round and
         # lets the final round overshoot (agc_alp.h:99-101), so pad capacity
-        # by up to 2m extra cuts; rounded up to a 128 multiple so every
-        # PDHG row-slice (tiers below and the full buffer) is TPU-tileable
+        # by up to 2m extra cuts; rounded up to a 128 multiple like every
+        # rung of the tier ladder below
         self.capacity = -(-(self.max_rows + 2 * self.m) // 128) * 128
-        # ladder of static PDHG row-slices (all multiples of 128 for the
-        # fused kernel), derived from the capacity rather than hardcoded to
-        # one code's observed cut counts: fine 128-steps while buffers are
-        # small (every lane starts there and most cut activity happens in
-        # the first few hundred rows), 256-steps beyond 512 where the
-        # marginal matvec cost per wasted row is amortized by the rarity of
-        # lanes that deep. Works for any (m, n, max_rows).
+        # ladder of static LP row-slices, derived from the capacity rather
+        # than hardcoded to one code's observed cut counts: fine 128-steps
+        # while buffers are small (every lane starts there and most cut
+        # activity happens in the first few hundred rows), 256-steps beyond
+        # 512 where the marginal matvec cost per wasted row is amortized by
+        # the rarity of lanes that deep. Works for any (m, n, max_rows).
         fine = list(range(128, min(512, self.capacity) + 1, 128))
-        # coarse rungs: 256-step but phase-shifted to start at 640 — every
-        # rung stays a 128 multiple (the fused-PDHG alignment invariant)
-        # while the 896/1152 rungs sit under AGC's observed active-cut mass
-        # (~900-1150 of a 1408 cap), where 768/1024/1280 rungs overshot the
-        # matvec row count by up to 16%
+        # coarse rungs: 256-step but phase-shifted to start at 640, so the
+        # 896/1152 rungs sit under AGC's observed active-cut mass (~900-1150
+        # of a 1408 cap), where 768/1024/1280 rungs overshot the matvec row
+        # count by up to 16%
         coarse = list(range(640, self.capacity, 256))
         self._tiers = tuple(t for t in fine + coarse if t < self.capacity)
-        # lp_backend: "auto" -> fused Pallas kernel on TPU, plain XLA
-        # elsewhere; "xla" forces XLA; "pallas-interpret" runs the kernel in
-        # interpreter mode (for differential tests off-TPU)
-        if lp_backend == "auto":
-            lp_backend = ("pallas" if jax.default_backend() == "tpu"
-                          else "xla")
+        if lp_backend not in LP_BACKENDS:
+            raise ValueError(f"unknown lp_backend {lp_backend!r}; "
+                             f"known: {LP_BACKENDS}")
         self.lp_backend = lp_backend
         # the cut threshold must exceed the solver's coordinate noise, else
         # residual violations on existing cuts read as fresh cuts and lanes
@@ -288,20 +287,12 @@ class _AdaptiveLPBase:
                             iters=self.ipm_iters, tol=self.ipm_tol,
                             check_every=self.ipm_check_every,
                             active=act_, **warm)
-                    elif self.lp_backend == "xla" or t % 128 != 0:
+                    else:
                         x_t, y_t, v_t = pdhg_box_lp(
                             obj_, a_t[:, :t], rhs_t[:, :t], xx_,
                             yy_[:, :t], self.lp_max_iters,
                             tol=self.lp_tol, check_every=self.lp_iters,
                             active=act_, stall_ratio=self.stall_ratio)
-                    else:
-                        x_t, y_t, v_t = pdhg_box_lp_fused(
-                            obj_, a_t[:, :t], rhs_t[:, :t], xx_,
-                            yy_[:, :t], self.lp_max_iters,
-                            tol=self.lp_tol, check_every=self.lp_iters,
-                            active=act_, stall_ratio=self.stall_ratio,
-                            interpret=self.lp_backend ==
-                            "pallas-interpret")
                     return x_t, yy_.at[:, :t].set(y_t), v_t
                 return run
 
@@ -467,12 +458,11 @@ class ALPDecoder(_AdaptiveLPBase):
     has no row cap for plain ALP; ``max_rows`` defaults high enough to never
     bind in practice.
 
-    Round-4 measured defaults: 64-iteration PDHG chunks with a 2048-iter
-    budget (1,248 cw/s at −3 dB vs 952 at the old 100/4000, FER within MC
-    noise), and the batched runner preferred over streaming — ALP's cut
-    rounds are narrow (mean 11 / max 17 at −3), so draining stragglers
-    buys less than the streaming refill machinery costs (952 vs 702 cw/s
-    measured clean-chip).
+    Defaults: 64-iteration PDHG chunks with a 2048-iteration budget (FER
+    within Monte-Carlo noise of the older 100/4000), and the batched runner
+    preferred over streaming — ALP's cut rounds are narrow (mean 11 / max
+    17 at −3 dB), so draining stragglers buys less than the streaming
+    refill machinery costs. Neither choice has been re-tuned on a GPU.
     """
 
     use_gauss = False
@@ -481,7 +471,7 @@ class ALPDecoder(_AdaptiveLPBase):
 
     def __init__(self, h, max_rounds: int = 64, lp_iters: int = 64,
                  int_tol: float = 3e-2, max_rows: int | None = None,
-                 cut_tol: float = 1e-3, lp_backend: str = "auto"):
+                 cut_tol: float = 1e-3, lp_backend: str = "xla"):
         if max_rows is None:
             # derived, not hardcoded: the reference ALP has NO row cap, so
             # the default must scale with the code — one cut round can add

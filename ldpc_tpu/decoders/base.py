@@ -1,7 +1,7 @@
 """Batched decoder API.
 
 The reference's decoder interface (``algo/algo.h:6-11``) is scalar:
-``decode(H, y, snr) -> (codeword, certificate)`` per trial. TPU-native
+``decode(H, y, snr) -> (codeword, certificate)`` per trial. Batched
 decoders are *batched and specialized to H at construction time*: the graph /
 constraint structure is extracted once on the host, and ``decode_batch`` is a
 pure jittable function over a batch of channel LLRs.

@@ -1,6 +1,6 @@
-"""Batched sum-product / min-sum belief propagation for TPU.
+"""Batched sum-product / min-sum belief propagation.
 
-TPU-first re-design of the reference BP (``algo/bp.h``): the object-oriented
+Batched re-design of the reference BP (``algo/bp.h``): the object-oriented
 Tanner graph rebuilt per trial (``algo/bp.h:212-215``) becomes static padded
 index arrays built once (:class:`ldpc_tpu.codes.graph.CodeGraph`), and the
 per-edge message maps become dense message tensors updated with masked
@@ -13,25 +13,25 @@ vector ops — flooding schedule, exactly the reference semantics:
 * posterior estimate = channel_llr + sum incoming (``algo/bp.h:85-90``)
 * hard decision: estimate <= 0 -> bit 1 (``algo/bp.h:193``)
 * early exit on syndrome success each iteration (``algo/bp.h:191-196``);
-  on TPU the early exit is per-batch: a ``lax.while_loop`` runs until every
+  batched, the early exit is per-batch: a ``lax.while_loop`` runs until every
   lane has converged or ``max_iter`` is hit, with converged lanes' outputs
   frozen by a done-mask.
 
-Two data layouts:
+Three data layouts (``layout="auto"`` takes the platform policy's choice,
+``config.PLATFORM_POLICY``):
 
-* ``layout="edge"`` (default): messages live on padded edge slots,
+* ``layout="edge"``: messages live on padded edge slots,
   ``(B, m, dc_max)`` row layout and ``(B, n, dv_max)`` col layout, re-bucketed
   with static flat ``take`` ops. Work is O(B * E).
 * ``layout="dense"``: messages are full masked ``(B, m, n)`` tensors — no
-  gathers at all, pure VPU element-wise + reductions. Wins for small codes
-  where m*n is within a small factor of E; also the cross-check oracle.
+  gathers at all, element-wise ops + reductions. Suits small codes where
+  m*n is within a small factor of E; also the cross-check oracle.
 * ``layout="mxu"``: row-layout messages with the column-side reduction and
   the edge re-broadcast expressed as matmuls against the static 0/1
   edge-incidence matrix S (S[e, col(e)] = 1):  L = llr + c2v @ S  and
-  v2c = L @ S^T - c2v.  Zero gathers — both transfers ride the MXU, which
-  on TPU beats gather lowering by a wide margin. ``mxu_dtype=bfloat16``
-  additionally runs the incidence matmuls in bf16 (messages round to 8-bit
-  mantissa; statistically indistinguishable FER, ~2x faster).
+  v2c = L @ S^T - c2v.  Zero gathers — both transfers are matrix products.
+  ``mxu_dtype=bfloat16`` runs the incidence matmuls in bf16 (messages
+  round to an 8-bit mantissa, with f32 accumulation).
 """
 from __future__ import annotations
 
@@ -42,12 +42,14 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..codes.graph import CodeGraph
+from ..config import platform_choice
 from ..ops.phi import phi
 from .base import DecodeResult
 
 NEUTRAL_LLR = 64.0  # pad-slot LLR: phi() == 0, sign +1 -> no contribution
+BP_LAYOUTS = ("edge", "dense", "mxu")
 
-__all__ = ["BPDecoder"]
+__all__ = ["BPDecoder", "BP_LAYOUTS"]
 
 
 def _check_update_rowlayout(v2c, mask, variant: str, ms_factor: float,
@@ -90,24 +92,23 @@ class BPDecoder:
     ``max_iter`` defaults to the reference's benchmark value 100
     (``main.cpp:29``).
 
-    Default precision/unroll (round 4): ``mxu_dtype=bfloat16`` and
-    ``unroll=2``. On TPU v5e these are FER-neutral *by construction* — the
-    MXU's DEFAULT f32 matmul path already rounds inputs to bf16, so bf16
-    message matmuls are bit-identical to the old f32 default (measured:
-    identical outputs AND identical speed; see PERF.md "null results").
-    FER parity at the bf16/unroll-2 defaults was validated at 10,000
-    trials x 11 SNRs on both benchmark matrices (0 FAIL,
-    ``reports/parity_optimalH_run.md``). Callers that need true f32
-    message matmuls (e.g. on CPU, where the MXU rounding does not apply)
-    can pass ``mxu_dtype=jnp.float32``; ``unroll`` only changes how many
-    BP iterations run per ``while_loop`` trip — per-iteration
-    syndrome/freeze semantics are preserved exactly.
+    Default precision: ``mxu_dtype=bfloat16`` for the ``mxu`` layout's
+    incidence matmuls. bf16 rounds the messages (not the 0/1 incidence
+    matrices, which are exact), so bit-identity with f32 is not claimed;
+    on a GPU its FER-neutrality rests on the measured z against the
+    reference golden (``chip_smoke.py`` Phase 1). Callers that need true
+    f32 message matmuls can pass ``mxu_dtype=jnp.float32``.
     """
 
     def __init__(self, h, max_iter: int = 100, variant: str = "sumprod",
-                 layout: str = "mxu", ms_factor: float = 0.75,
+                 layout: str = "auto", ms_factor: float = 0.75,
                  dtype=jnp.float32, fixed_iters: bool = False,
-                 mxu_dtype=jnp.bfloat16, unroll: int = 2):
+                 mxu_dtype=jnp.bfloat16):
+        if layout == "auto":
+            layout = platform_choice("bp_layout")
+        if layout not in BP_LAYOUTS:
+            raise ValueError(f"unknown BP layout {layout!r}; "
+                             f"known: {BP_LAYOUTS + ('auto',)}")
         self.name = "BP"
         self.graph = g = CodeGraph.from_h(np.asarray(h))
         self.n = g.n
@@ -127,16 +128,6 @@ class BPDecoder:
         self._col_from_row = jnp.asarray(g.col_from_row)  # flat idx, pad == m*dc
         if layout == "dense":
             self._hmask = jnp.asarray(g.h.astype(bool))
-        if layout == "pallas" and jax.default_backend() not in ("tpu",):
-            layout = self.layout = "mxu"        # Mosaic kernels need a TPU
-        if layout == "pallas":
-            if variant != "sumprod":
-                raise ValueError("pallas layout implements sumprod only")
-            from ..ops.pallas.bp_kernel import make_bp_pallas_decoder
-            self.tile_b = 128
-            self._pallas = make_bp_pallas_decoder(
-                g.h, max_iter=self.max_iter, tile_b=self.tile_b,
-                mm_dtype=mxu_dtype, unroll=unroll)
         if layout == "mxu":
             # edge->column incidence: S[e, col(e)] = 1 (pad slots all-zero)
             e_flat = g.m * g.dc_max
@@ -181,13 +172,6 @@ class BPDecoder:
             return self._decode_edge(llrs)
         if self.layout == "mxu":
             return self._decode_mxu(llrs)
-        if self.layout == "pallas":
-            if llrs.shape[0] % self.tile_b:
-                return self._decode_mxu(llrs)   # shape fallback
-            bits, done, iters = self._pallas(llrs)
-            return DecodeResult(bits=bits.astype(jnp.uint8),
-                                success=done[:, 0] > 0,
-                                iterations=iters[:, 0])
         return self._decode_dense(llrs)
 
     def _decode_mxu(self, llrs):

@@ -1,6 +1,6 @@
 """Full ("Feldman") LP decoding over the cascaded three-variable polytope.
 
-TPU-native equivalent of ``algo/full_lp.h``: the LP rows are exactly the
+Batched equivalent of ``algo/full_lp.h``: the LP rows are exactly the
 cascaded constraints the reference builds into GLPK (``DecodeFullLP``,
 ``full_lp.h:61-156``) — the same structure the QP-ADMM decoder uses — but the
 solve is a batched on-device PDHG (:mod:`ldpc_tpu.ops.lp_solver`) instead of

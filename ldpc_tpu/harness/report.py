@@ -4,7 +4,7 @@ Header and column order exactly match ``main.cpp:47-49,79-86``:
 ``Method,SNR,Sigma,FER,Time,AvgHamming,AvgHammingCorrect,AvgHammingWrong``
 with 12-decimal fixed formatting. An *extended* report adds the metrics the
 reference tracks but never writes (pseudocodeword rate, ``experiment.h:116``)
-plus TPU throughput columns.
+plus throughput columns.
 """
 from __future__ import annotations
 

@@ -11,20 +11,29 @@ Reproduces ``CalculateGauss`` (``algo/agc_alp.h:19-74``) per batch lane:
    and XOR it out of *all* other rows (``agc_alp.h:44-72``);
 3. un-permute the columns (``agc_alp.h:73``).
 
-The data-dependent column advancement is restructured TPU-style as a fixed
-n-trip loop over columns: maintain the current pivot-row count r per lane;
-each column either yields a pivot (swap + eliminate, r += 1) or is skipped —
+The data-dependent column advancement is restructured as a fixed n-trip
+loop over columns: maintain the current pivot-row count r per lane; each
+column either yields a pivot (swap + eliminate, r += 1) or is skipped —
 exactly the same elimination order, fixed trip count.
+
+Step 2 has two backends: the batched XLA loop below, and a Triton kernel
+that keeps each lane's bit-packed matrix in registers
+(:mod:`ldpc_tpu.ops.pallas.gauss_kernel`).
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
+from ..config import platform_choice
+from .pallas.gauss_kernel import gf2_eliminate_triton, kernel_fits
+
 EPS = 1e-8
+GAUSS_BACKENDS = ("auto", "xla", "triton")
 
 __all__ = ["fractional_column_order", "gf2_eliminate_ordered",
-           "calculate_gauss_batched"]
+           "calculate_gauss_batched", "resolve_gauss_backend",
+           "GAUSS_BACKENDS"]
 
 
 def fractional_column_order(u, eps: float = EPS):
@@ -75,9 +84,7 @@ def gf2_eliminate_ordered(h_perm):
 
     # skip the remaining columns once every lane's rank saturates (no
     # further column can yield a pivot; the reference loop only skips
-    # through them). fori-of-cond rather than a while_loop: this runs
-    # inside the decoders' cut-round while_loop, and nested while loops
-    # compile pathologically slowly on the TPU toolchain.
+    # through them): a trip past saturation costs only the predicate.
     def maybe_step(col, carry):
         _, r = carry
         return jax.lax.cond(jnp.min(r) < m, lambda c: step(col, c),
@@ -88,39 +95,56 @@ def gf2_eliminate_ordered(h_perm):
     return hm
 
 
+def resolve_gauss_backend(backend: str, m: int, n: int,
+                          platform: str | None = None) -> str:
+    """The elimination backend that ``calculate_gauss_batched`` runs.
+
+    "auto" takes the platform policy's choice (``config.PLATFORM_POLICY``),
+    then the shape rule: a matrix larger than the Triton kernel's block
+    (``gauss_kernel.kernel_fits``) runs on XLA. "triton" demands the
+    kernel: it raises without a CUDA card or for a matrix beyond the
+    block, rather than interpreting or running XLA instead."""
+    if backend not in GAUSS_BACKENDS:
+        raise ValueError(f"unknown gauss backend {backend!r}; "
+                         f"known: {GAUSS_BACKENDS}")
+    if backend == "xla":
+        return backend
+    if platform is None:
+        platform = jax.devices()[0].platform
+    if backend == "auto":
+        backend = platform_choice("gauss", platform)
+        if backend == "triton" and not kernel_fits(m, n):
+            backend = "xla"
+        return backend
+    if platform != "gpu":
+        raise ValueError(f"gauss backend 'triton' needs a CUDA card; "
+                         f"platform is {platform!r}")
+    if not kernel_fits(m, n):
+        raise ValueError(f"({m}, {n}) exceeds the Triton kernel's block")
+    return backend
+
+
 def calculate_gauss_batched(h, u, eps: float = EPS, active=None,
                             backend: str = "auto"):
     """Full CalculateGauss: h (m, n) static uint8, u (B, n) -> (B, m, n).
 
-    ``backend``: "auto" uses the VMEM-resident Pallas elimination on TPU
-    (~10x the XLA fori-loop path) and XLA elsewhere; "xla" / "pallas" /
-    "pallas-interpret" force a path. ``active``: optional (B,) bool — with
-    the Pallas backend, groups of inactive lanes skip the elimination and
-    return garbage rows (callers must mask); ignored by the XLA path.
+    ``backend``: "auto", "xla" or "triton" (see
+    :func:`resolve_gauss_backend`). ``active``: optional (B,) bool — the
+    Triton kernel skips inactive lanes and returns them unreduced
+    (callers must mask); the XLA path ignores it.
     """
     bsz, n = u.shape
     h = jnp.asarray(h, jnp.uint8)
+    backend = resolve_gauss_backend(backend, h.shape[0], n)
     p = fractional_column_order(u, eps)                          # (B, n)
-    # Column (un)permutation via one-hot matmuls on the MXU: batched XLA
-    # gathers with per-lane index vectors cost ~30 ms at (64, 160, 280) on
-    # TPU — 10x the matmul that computes the same permutation.
-    perm = (p[:, :, None] ==
-            jnp.arange(n, dtype=p.dtype)[None, None, :]).astype(jnp.float32)
     # h_perm[b, i, j] = h[i, p[b, j]]
-    h_perm = jnp.einsum("ik,bjk->bij", h.astype(jnp.float32), perm,
-                        preferred_element_type=jnp.float32)
-    if backend == "auto":
-        from .pallas.gauss_kernel import gauss_fits_vmem
-        m = h.shape[0]
-        backend = ("pallas" if jax.default_backend() == "tpu"
-                   and gauss_fits_vmem(m, n) else "xla")
+    h_perm = jnp.take(h, p, axis=1).transpose(1, 0, 2)
     if backend == "xla":
-        he = gf2_eliminate_ordered((h_perm > 0.5).astype(jnp.uint8))
+        he = gf2_eliminate_ordered(h_perm)
     else:
-        from .pallas.gauss_kernel import gf2_eliminate_pallas
-        he = gf2_eliminate_pallas(h_perm, active,
-                                  interpret=backend == "pallas-interpret")
-    # un-permute: out[b, i, p[b, j]] = he[b, i, j]
-    out = jnp.einsum("bij,bjk->bik", he.astype(jnp.float32), perm,
-                     preferred_element_type=jnp.float32)
-    return (out > 0.5).astype(jnp.uint8)
+        he = gf2_eliminate_triton(h_perm, active)
+    # un-permute: out[b, i, p[b, j]] = he[b, i, j], a gather by p's inverse
+    lanes = jnp.arange(bsz)[:, None]
+    p_inv = jnp.zeros_like(p).at[lanes, p].set(
+        jnp.arange(n, dtype=p.dtype)[None, :])
+    return jnp.take_along_axis(he, p_inv[:, None, :], axis=2)

@@ -13,9 +13,9 @@ An interior-point method converges superlinearly to mu ~ 1e-7 in ~30 Newton
 steps regardless of degeneracy, recovering coordinates to ~1e-4 — the same
 regime as an exact simplex for cut-search purposes.
 
-TPU mapping: every step is batched dense linear algebra. The normal matrix
-``M = A^T diag(y/s) A + diag(zl/x + zu/w)`` is one (B, n, n) einsum on the
-MXU; the two Newton solves (predictor + corrector) share one batched Cholesky
+Every step is batched dense linear algebra. The normal matrix
+``M = A^T diag(y/s) A + diag(zl/x + zu/w)`` is one (B, n, n) einsum; the
+two Newton solves (predictor + corrector) share one batched Cholesky
 factorization. All f32, with primal regularization ``delta*I`` to keep the
 factorization stable as mu -> 0 (f32 Cholesky tolerates cond ~1e7; the
 regularized M stays within it for mu >= ~1e-7).
@@ -47,14 +47,13 @@ def _pos_step(v, dv, frac: float = 0.995):
 def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
                active=None, delta: float = 1e-6, check_every: int = 5,
                x0=None, y0=None, warm_shift: float = 1e-2,
-               factor_backend: str = "auto", stall_ratio: float = 0.8,
-               matvec_backend: str = "auto"):
+               stall_ratio: float = 0.8):
     """Mehrotra predictor-corrector IPM, batched over lanes. All matmuls
     (einsums AND the Cholesky / triangular-solve internals) run at
-    Precision.HIGHEST: the TPU MXU's default f32 path rounds inputs to
-    bf16, whose ~3 significant digits destroy the late Newton systems
-    (D entries span 1e+-8) — with default precision the solver stalls at
-    ~1e-2, i.e. no better than PDHG.
+    Precision.HIGHEST: a reduced-precision f32 matmul (bf16 passes, or TF32
+    on a GPU) keeps ~3 significant digits, which destroys the late Newton
+    systems (D entries span 1e+-8) — the solver then stalls at ~1e-2, no
+    better than PDHG.
 
     c (B, n); a_rows (B, R, n); b (B, R); ``active`` optional (B,) bool —
     inactive lanes are excluded from the convergence check (their iterates
@@ -70,56 +69,27 @@ def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
     batch error has plateaued — two consecutive chunk boundaries each
     improving it by less than ``1 - stall_ratio`` (see the chunk loop).
 
-    ``matvec_backend``: "auto" routes the per-step constraint matvecs
-    through the transposed bf16 VPU kernel on TPU
-    (:mod:`ldpc_tpu.ops.pallas.gemv_kernel`, ~1.8-2x the HIGHEST einsum;
-    cut rows are +-1-valued so bf16 storage is exact and the kernel's f32
-    accumulation is HIGHEST-grade or better) and the XLA einsums elsewhere;
-    "xla" / "pallas" / "pallas-interpret" force a choice. The running
-    ``A x`` residual is carried incrementally across Newton steps (the
-    corrector's ``A dx`` is reused; ~1e-7-scale drift) and re-derived
-    exactly at every chunk boundary and for the final certificate.
-
-    ``factor_backend``: "auto" uses the blocked batched Cholesky
-    (:mod:`ldpc_tpu.ops.pallas.chol_kernel`) on TPU — XLA's
-    ``jnp.linalg.cholesky`` + ``cho_solve`` at this size are sequential-
-    overhead-bound (~19 + 2x3 ms in-loop at (64, 280, 280), ~80% of the
-    Newton step; ``scripts/prof/prof_newton_parts.py``) — and XLA
-    elsewhere; "xla" / "blocked" / "blocked-interpret" force a choice.
+    The running ``A x`` residual is carried incrementally across Newton
+    steps (the corrector's ``A dx`` is reused; ~1e-7-scale drift) and
+    re-derived exactly at every chunk boundary and for the final
+    certificate. The normal matrix is factored with ``jnp.linalg.cholesky``
+    and solved with ``cho_solve`` (cuSOLVER / cuBLAS on a GPU).
     """
-    if factor_backend == "auto":
-        factor_backend = ("blocked" if jax.default_backend() == "tpu"
-                          else "xla")
-    if matvec_backend == "auto":
-        matvec_backend = ("pallas" if jax.default_backend() == "tpu"
-                          else "xla")
     with jax.default_matmul_precision("highest"):
         bsz, r_cap, n = a_rows.shape
         f32 = jnp.float32
         c = c.astype(f32)
         a = a_rows.astype(f32)
 
-        if matvec_backend.startswith("pallas"):
-            from .pallas.gemv_kernel import (batched_gemv, batched_gemv_t,
-                                             normal_build, prepare_gemv)
-            at_bf = prepare_gemv(a)
-            interp = matvec_backend == "pallas-interpret"
+        def mv(x):
+            return jnp.einsum("brn,bn->br", a, x,
+                              preferred_element_type=f32,
+                              precision=jax.lax.Precision.HIGHEST)
 
-            def mv(x):
-                return batched_gemv(at_bf, x, interpret=interp)
-
-            def mvt(y):
-                return batched_gemv_t(at_bf, y, n, interpret=interp)
-        else:
-            def mv(x):
-                return jnp.einsum("brn,bn->br", a, x,
-                                  preferred_element_type=f32,
-                                  precision=jax.lax.Precision.HIGHEST)
-
-            def mvt(y):
-                return jnp.einsum("brn,br->bn", a, y,
-                                  preferred_element_type=f32,
-                                  precision=jax.lax.Precision.HIGHEST)
+        def mvt(y):
+            return jnp.einsum("brn,br->bn", a, y,
+                              preferred_element_type=f32,
+                              precision=jax.lax.Precision.HIGHEST)
 
         # per-lane objective scaling for conditioning (argmin-invariant)
         cscale = jnp.maximum(jnp.mean(jnp.abs(c), axis=-1, keepdims=True), 1e-6)
@@ -172,31 +142,15 @@ def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
             dxu = jnp.clip(zu / w, 1e-10, 1e10)
             dxx = dxl + dxu                                         # (B, n)
 
-            if matvec_backend.startswith("pallas"):
-                # fused A diag(d) A^T + diag(dxx) + delta*I on three exact
-                # bf16 d-planes (1.9x the HIGHEST einsum, ~3e-7 relative;
-                # gemv_kernel.normal_build)
-                m = normal_build(at_bf, dy_s, dxx, delta=delta,
-                                 interpret=interp)[:, :n, :n]
-            else:
-                m = jnp.einsum("bri,br,brj->bij", a, dy_s, a,
-                               preferred_element_type=f32,
-                               precision=jax.lax.Precision.HIGHEST)
-                m = m + jax.vmap(jnp.diag)(dxx) + delta * eye[None]
-            if factor_backend.startswith("blocked"):
-                from .pallas.chol_kernel import (blocked_cho_solve,
-                                                 blocked_cholesky)
-                fac = blocked_cholesky(
-                    m, interpret=factor_backend == "blocked-interpret")
+            m = jnp.einsum("bri,br,brj->bij", a, dy_s, a,
+                           preferred_element_type=f32,
+                           precision=jax.lax.Precision.HIGHEST)
+            m = m + jax.vmap(jnp.diag)(dxx) + delta * eye[None]
+            chol = jnp.linalg.cholesky(m)
 
-                def m_solve(r):
-                    return blocked_cho_solve(fac, r)
-            else:
-                chol = jnp.linalg.cholesky(m)
-
-                def m_solve(r):
-                    return jax.scipy.linalg.cho_solve(
-                        (chol, True), r[..., None])[..., 0]
+            def m_solve(r):
+                return jax.scipy.linalg.cho_solve(
+                    (chol, True), r[..., None])[..., 0]
 
             def solve_dir(sig_mu, extra_y, extra_l, extra_u):
                 """Newton direction for complementarity targets
@@ -286,14 +240,13 @@ def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
             # f32 plateau sits above any usable tol, so a tol-only
             # short-circuit never fires and every solve pays the full
             # ``iters`` budget; the plateau cut stops there instead — the
-            # steps it skips no longer change the iterate
-            # (A/B: scripts/prof/prof_ipm_ab.py). Two structure points,
-            # both measured: a single slow chunk is NOT terminal
+            # steps it skips no longer change the iterate. Two structure
+            # points, both measured: a single slow chunk is NOT terminal
             # (Mehrotra's decay is not monotone in 5-step windows; a
             # one-stall latch wrecked cut-search quality and FER), and the
             # stall counters are PER LANE — a batch-max rule would let the
             # single worst lane's plateau freeze lanes still converging
-            # toward tol (round-5 review finding).
+            # toward tol.
             state, best_err, stall_cnt = carry
             err, ax_fresh = lane_errs(state)
             state = state[:6] + (ax_fresh,)
@@ -301,7 +254,7 @@ def ipm_box_lp(c, a_rows, b, iters: int = 35, tol: float = 1e-6,
             # a stalled lane stays stalled: plateau errors fluctuate, and
             # judging against the previous boundary lets the noise read as
             # improvement, un-stall the lane, and keep the whole batch
-            # running (measured: -18% throughput for zero FER change).
+            # running (it cost throughput for no FER change).
             improving = err < stall_ratio * best_err
             latched = stall_cnt >= 2
             stall_cnt = jnp.where(latched, stall_cnt,

@@ -14,8 +14,8 @@ Step sizes obey tau * sigma * ||A||^2 < 1 via the bound
 constraint rows, so the solver adapts as cuts are added.
 
 Constraints are stored as dense signed rows (B, R, n) — the cut matrices of
-the ALP family are per-lane data, so A x / A^T y are batched GEMVs that XLA
-maps to the MXU; inactive rows are all-zero with rhs 0, which keeps their
+the ALP family are per-lane data, so A x / A^T y are batched GEMVs;
+inactive rows are all-zero with rhs 0, which keeps their
 duals at 0 automatically.
 """
 from __future__ import annotations
@@ -83,14 +83,17 @@ def pdhg_box_lp(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
     AND optimal)" certificate. Warm-startable: pass previous (x, y).
     """
     tau, sigma = pdhg_steps(a_rows, safety, omega)
+    # The batched matvecs are bandwidth-bound: HIGHEST precision (no TF32
+    # or bf16 passes) adds arithmetic, not bytes, and keeps them f32-exact.
+    hi = jax.lax.Precision.HIGHEST
 
     def step(xy):
         x, y = xy
         aty = jnp.einsum("brn,br->bn", a_rows, y,
-                         preferred_element_type=jnp.float32)
+                         preferred_element_type=jnp.float32, precision=hi)
         x_new = jnp.clip(x - tau * (c + aty), 0.0, 1.0)
         ax = jnp.einsum("brn,bn->br", a_rows, 2.0 * x_new - x,
-                        preferred_element_type=jnp.float32)
+                        preferred_element_type=jnp.float32, precision=hi)
         y_new = jnp.maximum(0.0, y + sigma * (ax - b))
         return x_new, y_new
 
@@ -101,12 +104,12 @@ def pdhg_box_lp(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
         """Per-lane max(primal violation, relative duality gap). Primal
         feasibility alone is insufficient: a warm-started iterate can be
         feasible yet far from optimal, and ALP cut search at a suboptimal
-        point generates junk cuts (see pdhg_kernel.lane_err)."""
+        point generates junk cuts."""
         ax = jnp.einsum("brn,bn->br", a_rows, x,
-                        preferred_element_type=jnp.float32)
+                        preferred_element_type=jnp.float32, precision=hi)
         viol = jnp.max(jnp.maximum(ax - b, 0.0), axis=-1)
         aty = jnp.einsum("brn,br->bn", a_rows, y,
-                         preferred_element_type=jnp.float32)
+                         preferred_element_type=jnp.float32, precision=hi)
         rc = c + aty
         pobj = jnp.sum(c * x, axis=-1)
         dobj = (-jnp.sum(b * y, axis=-1)
@@ -117,10 +120,9 @@ def pdhg_box_lp(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
             v = jnp.where(active, v, 0.0)
         return v
 
-    # fori-of-cond-of-fori rather than nested while loops: a while_loop
-    # inside an outer while_loop (the decoders' cut-round loop) compiles
-    # pathologically slowly on the TPU toolchain; a fixed chunk count with a
-    # predicated body lowers cleanly and skips converged chunks at runtime.
+    # a fixed chunk count with a predicated body: converged chunks are
+    # skipped at run time, and the trip count stays static inside the
+    # decoders' cut-round while_loop
     n_chunks = -(-iters // check_every)
 
     def chunk(_, carry):
@@ -156,68 +158,25 @@ def pdhg_box_lp(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
     return x, y, v
 
 
-def pdhg_box_lp_fused(c, a_rows, b, x0, y0, iters: int, safety: float = 0.95,
-                      tol: float = 1e-4, check_every: int = 200,
-                      interpret: bool = False, active=None,
-                      stall_ratio: float | None = None,
-                      average: bool = False, omega: float = 1.0):
-    """Tolerance-driven PDHG via the fused Pallas chunk kernel
-    (:mod:`ldpc_tpu.ops.pallas.pdhg_kernel`): each chunk runs
-    ``check_every`` iterations with the lane's constraint slice resident in
-    VMEM and returns the per-lane max primal violation, so the outer
-    tolerance loop costs no extra matvec. Requires a_rows.shape[1] to be a
-    multiple of 128. Same semantics as ``pdhg_box_lp(tol=...)`` and the same
-    (x, y, per-lane viol) return.
-
-    ``active``: optional (B,) bool — groups of inactive lanes skip each
-    chunk inside the kernel and are excluded from the stop criterion."""
-    from .pallas.pdhg_kernel import pdhg_chunk_pallas
-
-    tau, sigma = pdhg_steps(a_rows, safety, omega)
-    n_chunks = -(-iters // check_every)
-    bsz = a_rows.shape[0]
-
-    def chunk(_, carry):
-        def run(carry):
-            x, y, v, _ = carry
-            xo, yo, vn = pdhg_chunk_pallas(c, a_rows, b, tau, sigma, x, y,
-                                           iters=check_every, active=active,
-                                           average=average,
-                                           interpret=interpret)
-            if active is not None:
-                vn = jnp.where(active, vn, 0.0)
-            return xo, yo, vn, jnp.max(v)
-        x, y, v, vprev = carry
-        vmax = jnp.max(v)
-        go = vmax > tol
-        if stall_ratio is not None:
-            go &= (vmax < stall_ratio * vprev) | ~jnp.isfinite(vprev)
-        return jax.lax.cond(go, run, lambda s: s, carry)
-
-    x, y, v, _ = jax.lax.fori_loop(
-        0, n_chunks, chunk,
-        (x0, y0, jnp.full((bsz,), jnp.inf, jnp.float32),
-         jnp.float32(jnp.inf)))
-    return x, y, v
-
-
 def pdhg_box_lp_shared(c, a, b, x0, y0, iters: int, safety: float = 0.95):
     """Preconditioned PDHG with a constraint matrix shared across the batch
     (FullLP case).
 
     c,x0: (B, n); a: (R, n) static; b: (R,); y0: (B, R). The products become
-    true GEMMs on the MXU.
+    true GEMMs, at HIGHEST precision like the batched solver's matvecs.
     """
     abs_a = jnp.abs(a)
     tau = safety / jnp.maximum(jnp.sum(abs_a, axis=0), 1.0)       # (n,)
     row_sum = jnp.sum(abs_a, axis=1)                              # (R,)
     sigma = jnp.where(row_sum > 0, safety / jnp.maximum(row_sum, 1e-6), 0.0)
+    hi = jax.lax.Precision.HIGHEST
 
     def body(_, xy):
         x, y = xy
-        x_new = jnp.clip(x - tau[None] * (c + y @ a), 0.0, 1.0)
-        y_new = jnp.maximum(0.0, y + sigma[None] *
-                            ((2.0 * x_new - x) @ a.T - b[None]))
+        x_new = jnp.clip(x - tau[None] * (c + jnp.dot(y, a, precision=hi)),
+                         0.0, 1.0)
+        y_new = jnp.maximum(0.0, y + sigma[None] * (
+            jnp.dot(2.0 * x_new - x, a.T, precision=hi) - b[None]))
         return x_new, y_new
 
     return jax.lax.fori_loop(0, iters, body, (x0, y0))

@@ -1,16 +1,16 @@
 """Multi-host runtime initialization.
 
-The reference is single-process (no MPI/NCCL/Gloo — SURVEY.md §2). The
-TPU-native framework targets multi-host pod slices: call
-:func:`initialize_distributed` once per host process before any JAX call;
-collectives then ride ICI within a slice and DCN across slices.
+The reference is single-process (no MPI/NCCL/Gloo — SURVEY.md §2). Here
+several hosts can share one trial mesh: call :func:`initialize_distributed`
+once per host process before any JAX call; the counter reductions then
+become collectives across hosts.
 
-For CPU-only simulation of a multi-process setup, run N processes with
-``JAX_PLATFORMS=cpu`` and pass explicit coordinator/num_processes/process_id.
+Pass the coordinator address, process count and process id explicitly
+(also how a multi-process run is simulated on the CPU, with
+``JAX_PLATFORMS=cpu``), or set ``auto=True`` to let
+``jax.distributed.initialize()`` discover the cluster from its scheduler.
 """
 from __future__ import annotations
-
-import os
 
 import jax
 
@@ -20,21 +20,18 @@ __all__ = ["initialize_distributed", "is_multi_host", "process_index",
 
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
-                           process_id: int | None = None) -> None:
+                           process_id: int | None = None,
+                           auto: bool = False) -> None:
     """Initialize jax.distributed when running multi-process.
 
-    With no arguments, relies on the TPU environment's automatic discovery
-    (GKE/TPU VMs set the cluster env vars); explicit arguments support the
-    CPU simulation path. Safe to call when single-process: if no cluster
-    configuration is present or discoverable, it is a no-op.
+    With explicit arguments, joins that cluster. With ``auto=True`` and no
+    arguments, ``jax.distributed.initialize()`` detects the cluster itself
+    (it raises where nothing describes one). With neither, or with
+    ``num_processes <= 1``, this is a no-op: a single process.
     """
     if num_processes is not None and num_processes <= 1:
         return
-    explicit = coordinator_address is not None
-    auto = any(v in os.environ for v in
-               ("COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS",
-                "TPU_WORKER_HOSTNAMES"))
-    if not (explicit or auto):
+    if coordinator_address is None and not auto:
         return
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

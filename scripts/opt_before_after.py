@@ -4,7 +4,7 @@ The reference's headline optimization artifact is a QP-ADMM FER drop from
 its starting matrix to its optimized one (optimize_H.cpp:88-135, notebook
 cells 6-7: H05 0.3380 -> optimalH 0.2751 at SNR=-3). Our population-parallel
 run (`apps/optimize_h.py`, defaults: seed=239, random 8x14/z=20 QC init)
-checkpoints to data/optimalH_tpu.txt + data/optimize_state.json. This
+checkpoints to data/optimalH_search.txt + data/optimize_state.json. This
 script reads the run's *initial* matrix from the state file (persisted at
 run start since round 4; falls back to re-deriving it from the seed with a
 warning for legacy states), measures initial vs optimized FER at the
@@ -50,7 +50,7 @@ def main():
         rng = np.random.default_rng(cfg.seed)
         init = QCMatrix.random(rng, cfg.block_size, cfg.block_rows,
                                cfg.block_cols).to_dense()
-    opt = read_pcm("data/optimalH_tpu.txt")
+    opt = read_pcm("data/optimalH_search.txt")
 
     key = jax.random.PRNGKey(cfg.seed)
     ev = PopulationEvaluator(cfg, cfg.block_cols * cfg.block_size)

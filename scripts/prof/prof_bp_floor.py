@@ -26,7 +26,7 @@ VALIDATION.md for the full root-cause chain.
 
 Usage:  JAX_PLATFORMS=cpu python scripts/prof/prof_bp_floor.py
         [--snr 0.0] [--trials 2000] [--iters 100]
-(f64 messages; run on CPU — TPUs emulate f64.)
+(f64 messages; run on the CPU, where f64 is native.)
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 jax.distributed, each holding 2 local virtual devices, run the sharded
 experiment step over a global 4-device mesh; per-process partial counters
 must psum to the single-process ground truth (SURVEY.md §4: multi-host
-logic testable without a TPU pod)."""
+logic testable without a cluster)."""
 import os
 import socket
 import subprocess

@@ -105,24 +105,3 @@ def test_ipm_warm_start_matches_cold():
     ow = np.sum(np.asarray(cc) * np.asarray(xw), axis=1)
     np.testing.assert_allclose(ow, oc, atol=1e-3)
     assert np.all(np.asarray(ew) < 1e-3)
-
-
-def test_ipm_blocked_factor_matches_xla():
-    """The blocked (Pallas diagonal-block) factor backend must reach the
-    same optimum as the XLA cholesky backend (regression for the round-5
-    TPU default; interpret mode off-TPU)."""
-    rng = np.random.default_rng(33)
-    n, r_cap, bsz = 24, 32, 4
-    aa, bb, cc = [], [], []
-    for _ in range(bsz):
-        a, b, c = _rand_cut_lp(rng, n, 12, r_cap)
-        aa.append(a), bb.append(b), cc.append(c)
-    aa, bb, cc = map(np.stack, (aa, bb, cc))
-    args = (jnp.asarray(cc), jnp.asarray(aa), jnp.asarray(bb))
-    xx, _, ex = ipm_box_lp(*args, iters=40, factor_backend="xla")
-    xb, _, eb = ipm_box_lp(*args, iters=40,
-                           factor_backend="blocked-interpret")
-    ox = np.sum(np.asarray(cc) * np.asarray(xx), axis=1)
-    ob = np.sum(np.asarray(cc) * np.asarray(xb), axis=1)
-    np.testing.assert_allclose(ob, ox, atol=1e-3)
-    assert np.all(np.asarray(eb) < 1e-2)

@@ -1,6 +1,6 @@
 """Smoke tests for the analysis-plots app (notebooks/plots.ipynb equivalent)
 and the FER-parity validate app, plus a large-code (H02, 520x640) decode —
-surfaces previously only exercised by hand on the TPU."""
+surfaces previously only exercised by hand on an accelerator."""
 import csv
 import os
 
